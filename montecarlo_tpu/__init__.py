@@ -1,4 +1,4 @@
-"""montecarlo_tpu — a TPU-native Monte Carlo sampling framework.
+"""montecarlo_tpu — a JAX Monte Carlo sampling framework for accelerators.
 
 A from-scratch JAX/XLA rebuild of the capabilities of Arianna.jl
 (TheDisorderedOrganization/MonteCarlo): a system-agnostic move/policy protocol,
@@ -6,7 +6,7 @@ a Metropolis–Hastings engine over many independent chains, schedulable recorde
 algorithms, and policy-guided Monte Carlo (PGMC) that adapts proposal
 parameters via policy-gradient optimisers — all expressed as pure, traceable
 functions compiled into fused device loops, with the chain axis vmapped and
-sharded across TPU meshes.
+sharded across device meshes.
 
 Public API mirrors the reference export surface (``src/Arianna.jl:26-37``,
 ``src/PolicyGuided/PolicyGuided.jl:20-21``).

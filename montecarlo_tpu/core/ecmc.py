@@ -11,7 +11,7 @@ lifting.  Every move is accepted; irreversibility (the lifted dynamics
 breaks detailed balance while preserving the target marginal) shortens
 autocorrelation times relative to reversible MH.
 
-TPU-native design: an event is a *fixed-shape* computation (O(1) for the 1-D
+Accelerator design: an event is a *fixed-shape* computation (O(1) for the 1-D
 zig-zag, one O(N) vector pass for hard-disk collision times), so
 ``events_per_step`` events run as a ``lax.scan`` inside the compiled time
 loop and the chain axis is vmapped/sharded exactly like Metropolis.  No

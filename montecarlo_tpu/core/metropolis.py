@@ -1,8 +1,8 @@
 """Metropolis–Hastings kernel and driver algorithm.
 
-TPU-native rebuild of the reference hot loop (``src/metropolis.jl:176-309``).
-Where the reference runs a scalar ``mc_step!`` per chain in a Julia closure
-mapped over OS threads, here one chain's step is a pure function
+Rebuild of the reference hot loop (``src/metropolis.jl:176-309``) for JAX
+accelerators.  Where the reference runs a scalar ``mc_step!`` per chain in a
+Julia closure mapped over OS threads, here one chain's step is a pure function
 (:func:`mc_step`), the per-sweep loop is ``lax.scan`` (:func:`mc_sweep`), the
 chain axis is ``vmap`` + sharding (handled by the orchestrator/mesh), and
 rejection is a ``where``-select — no mutate-and-revert.
@@ -242,11 +242,11 @@ class Metropolis(DeviceAlgorithm):
             raise ValueError("Metropolis requires a non-empty move pool")
         if fused not in ("auto", "off", "interpret", "cell"):
             raise ValueError(
-                "fused must be 'auto' (Pallas fast path on TPU when the pool "
-                "is fusable), 'off' (always the generic path), 'interpret' "
-                "(force the fused path in Pallas interpret mode — CPU "
-                "testing), or 'cell' (force the checkerboard cell-MC path "
-                "for large-N particle systems)")
+                "fused must be 'auto' (the Triton sweep kernel on a GPU, or "
+                "cell MC at large N, when the pool has one), 'off' (always "
+                "the generic path), 'interpret' (force the kernel in Pallas "
+                "interpret mode — CPU testing), or 'cell' (force the "
+                "checkerboard cell-MC path for large-N particle systems)")
         self.fused = fused
         self.pool = tuple(pool)
         self.movedefs = tuple(m.move for m in self.pool)
@@ -495,18 +495,17 @@ class Metropolis(DeviceAlgorithm):
         return {**dstate, "sys": sys,
                 self.state_key: {**slc, "counters": counters}}
 
-    # -- fused Pallas fast path -------------------------------------------
-    _FUSED_KINDS = ("gaussian_displacement_1d", "lj_displacement_2d")
+    # -- fused fast paths ---------------------------------------------------
+    _FUSED_KINDS = ("gaussian_displacement_1d",)
 
     @property
     def supports_fused(self) -> bool:
-        """True when the pool structure has a Pallas VMEM-resident sweep
-        kernel (``ops/fused_sweep.py`` / ``ops/lj_sweep.py``): a single
-        recognised move, or the BASELINE config-5 mixed LJ
-        displacement + swap pool.  All kernels have ``shard_map`` wrappers,
-        so a chain mesh is supported.  Auto-selected by the orchestrator on
-        TPU; ``fused='off'`` opts out, ``fused='interpret'`` forces the
-        fused path in Pallas interpret mode on any backend (CPU tests)."""
+        """True when the pool has a segment-level fast path: the checkerboard
+        cell MC (plain XLA, any backend) or the Triton Gaussian sweep kernel
+        (``ops/fused_sweep.py``) for a single 1-D Gaussian displacement move.
+        The kernel is auto-selected on a GPU backend; ``fused='off'`` opts
+        out, ``fused='interpret'`` runs it in Pallas interpret mode on any
+        backend (CPU tests).  Every other pool runs the generic path."""
         if self.fused == "off":
             return False
         if self.fused == "cell":
@@ -516,26 +515,18 @@ class Metropolis(DeviceAlgorithm):
             # engages it on CPU too (keeps supports_fused consistent with
             # the _use_cell introspection on every backend)
             return True
-        if self._pos_dim not in (None, 2):
-            return False  # Pallas particle kernels are 2-D
-        if self.fused != "interpret" and jax.default_backend() != "tpu":
+        if self.fused != "interpret" and jax.default_backend() != "gpu":
             return False
-        kinds = tuple(m.move.kind for m in self.pool)
-        if self.n_moves == 1:
-            return kinds[0] in self._FUSED_KINDS
-        if self.n_moves == 2 and set(kinds) in (
-                {"lj_displacement_2d", "lj_swap"},
-                {"poly_displacement_2d", "poly_swap"}):
-            # one shared static interaction table
-            return self.pool[0].move.aux == self.pool[1].move.aux
-        return False
+        return (self.n_moves == 1
+                and self.pool[0].move.kind in self._FUSED_KINDS)
 
     def fused_advance(self, dstate, n_steps):
-        """Advance all chains ``n_steps * sweepstep`` MH steps in one Pallas
-        kernel launch; chains stay resident in VMEM for the whole segment.
+        """Advance all chains ``n_steps * sweepstep`` MH steps in one
+        segment: the cell-MC path, or one launch of the Gaussian sweep
+        kernel, which keeps each chain in a register for the segment.
 
-        Counters/cached-energy semantics match :meth:`step`; the PRNG stream
-        is the TPU hardware PRNG (seeded per segment from (seed, t)), so
+        Counters/cached-energy semantics match :meth:`step`; the kernel's
+        random stream is a counter-based hash of (seed, step, chain), so
         individual trajectories differ from the threefry path while the
         sampled distribution is identical.
         """
@@ -547,10 +538,6 @@ class Metropolis(DeviceAlgorithm):
         # per-step seeding off the absolute micro-step index keeps results
         # invariant to how recorder schedules slice the run into segments
         micro_t0 = (t0 * self.sweepstep).astype(jnp.int32)
-        kinds = tuple(m.move.kind for m in self.pool)
-        seed = jnp.int32(self.seed)
-        axis = self.mesh.axis_names[0] if self.mesh is not None else None
-        interp = self.fused == "interpret"
 
         if self._use_cell:           # checkerboard cell MC (large N)
             from ..ops.cell_mc import cell_mc_segment
@@ -626,80 +613,22 @@ class Metropolis(DeviceAlgorithm):
                     "t": (t0 + n_steps).astype(jnp.int32),
                     self.state_key: out_slc}
 
-        if self.n_moves == 2:        # mixed displacement + swap pool
-            is_lj = "lj_swap" in kinds
-            if is_lj:
-                from ..ops.lj_sweep import (fused_lj_mixed_sweep as fused,
-                                            sharded_lj_mixed_sweep as shrd)
-                disp_idx = kinds.index("lj_displacement_2d")
-                swap_idx = kinds.index("lj_swap")
-                ident = sys.species
-            else:
-                from ..ops.poly_sweep import (
-                    fused_poly_mixed_sweep as fused,
-                    sharded_poly_mixed_sweep as shrd)
-                disp_idx = kinds.index("poly_displacement_2d")
-                swap_idx = kinds.index("poly_swap")
-                ident = sys.diam
-            aux_params = self.pool[disp_idx].move.aux
-            sigma = jax.tree_util.tree_leaves(params[disp_idx])[0]
-            w_disp = float(self.weights[disp_idx] / self.weights.sum())
-            args = (sys.pos, ident, sys.beta, sys.energy, sys.box[0],
-                    sigma, w_disp, seed, micro_t0, total)
-            if self.mesh is not None:
-                pos, ident_out, energy, acc, tot = shrd(
-                    self.mesh, axis, *args, params=aux_params,
-                    interpret=interp)
-            else:
-                pos, ident_out, energy, acc, tot = fused(
-                    *args, params=aux_params, interpret=interp)
-            if is_lj:
-                new_sys = dataclasses.replace(
-                    sys, pos=pos, species=ident_out, energy=energy)
-            else:
-                new_sys = dataclasses.replace(
-                    sys, pos=pos, diam=ident_out, energy=energy)
-            inc = jnp.zeros_like(slc["counters"])
-            inc = inc.at[:, disp_idx, 0].add(acc[:, 0])
-            inc = inc.at[:, disp_idx, 1].add(tot[:, 0])
-            inc = inc.at[:, swap_idx, 0].add(acc[:, 1])
-            inc = inc.at[:, swap_idx, 1].add(tot[:, 1])
-            counters = slc["counters"] + inc
-            return {**dstate, "sys": new_sys,
-                    "t": (t0 + n_steps).astype(jnp.int32),
-                    self.state_key: {**slc, "counters": counters}}
-
+        from ..ops.fused_sweep import (fused_gaussian_sweep,
+                                       sharded_gaussian_sweep)
         sigma = jax.tree_util.tree_leaves(params[0])[0]
-        kind = kinds[0]
-        if kind == "gaussian_displacement_1d":
-            from ..ops.fused_sweep import fused_gaussian_sweep, \
-                sharded_gaussian_sweep
-            potential = self.pool[0].move.aux
-            if self.mesh is not None:
-                x, e, acc = sharded_gaussian_sweep(
-                    self.mesh, axis, sys.x, sys.beta,
-                    sigma, seed, micro_t0, total, potential=potential,
-                    interpret=interp)
-            else:
-                x, e, acc = fused_gaussian_sweep(
-                    sys.x, sys.beta, sigma, seed, micro_t0,
-                    total, potential=potential, interpret=interp)
-            new_sys = dataclasses.replace(sys, x=x, e=e)
-        elif kind == "lj_displacement_2d":
-            from ..ops.lj_sweep import fused_lj_sweep, sharded_lj_sweep
-            lj_params = self.pool[0].move.aux
-            args = (sys.pos, sys.species, sys.beta, sys.energy, sys.box[0],
-                    sigma, seed, micro_t0, total)
-            if self.mesh is not None:
-                pos, energy, acc = sharded_lj_sweep(
-                    self.mesh, axis, *args, params=lj_params,
-                    interpret=interp)
-            else:
-                pos, energy, acc = fused_lj_sweep(*args, params=lj_params,
-                                                  interpret=interp)
-            new_sys = dataclasses.replace(sys, pos=pos, energy=energy)
-        else:  # pragma: no cover - guarded by supports_fused
-            raise ValueError(f"no fused kernel for move kind {kind!r}")
+        potential = self.pool[0].move.aux
+        seed = jnp.int32(self.seed)
+        interp = self.fused == "interpret"
+        if self.mesh is not None:
+            x, e, acc = sharded_gaussian_sweep(
+                self.mesh, self.mesh.axis_names[0], sys.x, sys.beta, sigma,
+                seed, micro_t0, total, potential=potential,
+                interpret=interp)
+        else:
+            x, e, acc = fused_gaussian_sweep(
+                sys.x, sys.beta, sigma, seed, micro_t0, total,
+                potential=potential, interpret=interp)
+        new_sys = dataclasses.replace(sys, x=x, e=e)
         counters = slc["counters"] + jnp.stack(
             [acc, jnp.broadcast_to(total, acc.shape)], axis=-1)[:, None, :]
         return {**dstate, "sys": new_sys, "t": (t0 + n_steps).astype(jnp.int32),

@@ -1,6 +1,6 @@
 """Move / Policy protocol — the user-extension surface of the framework.
 
-TPU-native redesign of the reference protocol (Arianna.jl
+Functional redesign of the reference protocol (Arianna.jl
 ``src/metropolis.jl:1-162``): instead of abstract types with mutating generic
 functions (``sample_action!``, ``perform_action!``, ``invert_action!``,
 ``perform_action_cached!``, ``log_proposal_density``), a move is a bundle of

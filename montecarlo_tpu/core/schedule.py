@@ -2,7 +2,7 @@
 
 ``build_schedule`` reproduces the three overloads of the reference
 (``src/simulation.jl:95,104,113``): linear, log-spaced, and block-pattern
-schedules.  :func:`compress_runs` is TPU-specific machinery: it factors a
+schedules.  :func:`compress_runs` is accelerator machinery: it factors a
 sorted event-time list into maximal arithmetic progressions so the
 orchestrator can replace per-event host round-trips with on-device
 scan-and-buffer segments (SURVEY §7 "Recorder schedules vs. fused scans").

@@ -1,6 +1,6 @@
 """System protocol — what a user must supply to simulate their model.
 
-TPU-native analogue of the reference's ``AriannaSystem`` extension protocol
+Functional analogue of the reference's ``AriannaSystem`` extension protocol
 (``src/Arianna.jl:22`` plus the generic I/O hooks ``store_trajectory``
 ``src/algorithms.jl:186``, ``write_system`` ``src/simulation.jl:118``).  A
 system here is a *static descriptor* (:class:`SystemDef`) of pure functions
@@ -54,7 +54,7 @@ class SystemDef:
         positions).  Incremental float32 ``ΔE`` accumulation drifts over long
         segments (~1e-3 relative per ~10^4 N-body moves); when set, the
         orchestrator applies this at every observation point, bounding cache
-        drift to one recorder period.  The generalised TPU answer to the
+        drift to one recorder period.  The generalised answer to the
         reference's ``perform_action_cached!`` cache-consistency contract
         (``src/metropolis.jl:119``).
     """
@@ -70,7 +70,7 @@ class SystemDef:
 def stack_chains(states: list):
     """Stack a list of single-chain state pytrees into one chain-major pytree.
 
-    The TPU replacement for the reference's ``chains::Vector{S}``
+    The replacement for the reference's ``chains::Vector{S}``
     (``src/simulation.jl:17``): one pytree whose leaves carry a leading chain
     axis, ready for ``vmap``/sharding.
     """

@@ -2,9 +2,9 @@
 
 A capability beyond the reference (Arianna.jl has no replica exchange; its
 chains never interact — ``src/metropolis.jl:302-309`` maps them independently).
-On TPU the chain axis is a sharded array axis, which makes replica exchange
-nearly free: a neighbour swap is a gather by a precomputed permutation, and
-under a mesh XLA lowers it to ICI collective-permute traffic.
+On an accelerator the chain axis is a sharded array axis, which makes replica
+exchange nearly free: a neighbour swap is a gather by a precomputed
+permutation, and under a mesh XLA lowers it to collective-permute traffic.
 
 Layout contract: chains are **ladder-major** — chain ``c`` is replica
 ``c % n_temps`` of ladder ``c // n_temps`` — and each replica owns a fixed

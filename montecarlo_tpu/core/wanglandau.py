@@ -8,7 +8,7 @@ acceptance rule ``min(1, g(E_old)/g(E_new))``, converging the estimate
 expectation at every temperature follows by one reweighting sum — the
 flat-histogram complement of the WHAM estimators in ``utils/analysis.py``.
 
-TPU-native design:
+Accelerator design:
 
 - Each chain is an **independent Wang–Landau walker** with its own
   ``log_g``/histogram arrays and modification factor, vmapped over the chain

@@ -14,7 +14,7 @@ uniform over non-overlapping configurations.  Two samplers share the state:
   non-reversible; the capability the reference names but does not implement
   (``/root/reference/README.md:27``).
 
-TPU-native event computation: for an axis-aligned direction the collision
+Vectorised event computation: for an axis-aligned direction the collision
 distance against every disk is one O(N) vector pass —
 ``s_j = u_j - sqrt(1 - w_j^2)`` with ``u`` the forward-wrapped parallel
 separation and ``w`` the min-imaged perpendicular separation — followed by a
@@ -36,6 +36,10 @@ import numpy as np
 from ..core.ecmc import EventChainModel
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+
+#: event-chain projections run in full float32: a TF32 product keeps ~3
+#: digits of a collision distance and breaks exact event times
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "HardDiskState",
@@ -378,9 +382,9 @@ def ecmc_model(chain_length: float,
             mask_a = idx == a
             p = jnp.sum(jnp.where(mask_a[:, None], pos, 0.0), axis=0)
             rel = pos - p
-            along = rel @ shift
+            along = jnp.dot(rel, shift, precision=_HIGHEST)
             relm = rel - box * jnp.round(rel / box)   # min-imaged
-            alongm = relm @ shift
+            alongm = jnp.dot(relm, shift, precision=_HIGHEST)
             w2 = jnp.maximum(jnp.sum(relm * relm, axis=-1)
                              - alongm * alongm, 0.0)
             u = along % box                           # forward-wrapped

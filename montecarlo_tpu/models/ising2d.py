@@ -9,7 +9,7 @@ paths are provided:
   :class:`~montecarlo_tpu.core.moves.MoveDef` protocol (O(1) delta-energy via
   the four-neighbour local field), the direct analogue of the reference's
   per-attempt ``mc_step!`` recipe (``src/metropolis.jl:176-190``).
-- :class:`CheckerboardMetropolis` — the TPU-idiomatic whole-lattice sweep: the
+- :class:`CheckerboardMetropolis` — the vectorised whole-lattice sweep: the
   square lattice is bipartite, so all sites of one parity have conditionally
   independent acceptance tests and can be updated simultaneously as one fused
   vector op over the (chains, L, L) array.  One step performs both half-sweeps
@@ -186,10 +186,10 @@ def checkerboard_sweep(state: Ising2DState, key):
 class CheckerboardMetropolis(DeviceAlgorithm):
     """Whole-lattice checkerboard Metropolis driver for 2-D lattice systems.
 
-    The TPU-native answer to "sweep the lattice": where the reference would
+    The vectorised answer to "sweep the lattice": where the reference would
     issue L² sequential single-site ``mc_step!`` calls per sweep
     (``src/metropolis.jl:203-212``), this updates each sublattice as one fused
-    (chains, L, L) vector op — every FLOP rides the VPU, no scan over sites.
+    (chains, L, L) vector op — no scan over sites.
 
     Same per-chain counter-based RNG streams as ``Metropolis``
     (fold_in(seed, chain) then fold_in(·, t)), same acceptance-counter
@@ -273,7 +273,7 @@ def wolff_step(state: Ising2DState, key):
     "capability a user would reach for next" on lattice models, and they fit
     the same :class:`~montecarlo_tpu.core.algorithms.DeviceAlgorithm` slot.
 
-    TPU-native design — no sequential flood fill over sites:
+    Vectorised design — no sequential flood fill over sites:
 
     1. *Bond percolation*: activate every aligned nearest-neighbour bond
        independently with ``p = 1 - exp(-2 β J)``.  Pre-sampling all ``2 L²``

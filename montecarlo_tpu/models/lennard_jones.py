@@ -5,7 +5,7 @@ points at TheDisorderedOrganization/ParticlesMC); BASELINE.json makes a 2-D
 LJ system with local displacement + swap moves a first-class benchmark config,
 so it ships here as a model family.
 
-TPU-native design: positions are a single ``(N, 2)`` array per chain (chain
+Vectorised design: positions are a single ``(N, 2)`` array per chain (chain
 axis via vmap/sharding), the per-move energy change is an O(N) vectorized
 min-image row sum (the cached-``Δe`` trick of ``perform_action_cached!``,
 ``src/metropolis.jl:119``, generalised: total energy is carried in the state
@@ -24,6 +24,9 @@ import numpy as np
 
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+
+#: event-chain projections run in full float32, never TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "LJState",
@@ -69,8 +72,8 @@ class LJParams:
                 jnp.asarray(self.sig, jnp.float32))
 
     def coeffs(self, s_i, s_j):
-        """Species-pair (eps, sig) via arithmetic select — TPU-friendly
-        (vector gathers from tiny tables are slow on the VPU)."""
+        """Species-pair (eps, sig) via arithmetic select — no gathers from
+        tiny tables inside the vectorised row."""
         same = s_i == s_j
         is_a = s_i == 0
         eps = jnp.where(
@@ -253,7 +256,7 @@ def lj_displacement_move(sigma: float, weight: float = 1.0,
         n = state.pos.shape[0]
         mask = jnp.arange(n) == i
         # one-hot reduce instead of dynamic gather, masked select instead of
-        # scatter: both vectorize on the VPU (TPU gathers/scatters serialise)
+        # scatter: both stay one fused vector pass
         old = jnp.sum(jnp.where(mask[:, None], state.pos, 0.0), axis=0)
         s_i = jnp.sum(jnp.where(mask, state.species, 0)).astype(
             state.species.dtype)
@@ -609,7 +612,7 @@ def ecmc_model(chain_length: float, params: LJParams = LJParams(),
                 state.species.dtype)
             rel = pos - p
             rel = rel - box * jnp.round(rel / box)     # signed min-image
-            along = rel @ shift_v
+            along = jnp.dot(rel, shift_v, precision=_HIGHEST)  # no TF32
             r0sq = jnp.sum(rel * rel, axis=-1)
             w2 = jnp.maximum(r0sq - along * along, 0.0)
             r0 = jnp.sqrt(r0sq)

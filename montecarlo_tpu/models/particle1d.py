@@ -1,6 +1,6 @@
 """1-D particle in an external potential.
 
-TPU-native rebuild of the reference example system
+Rebuild of the reference example system
 (``example/particle_1d/particle_1d.jl``): state carries position ``x``,
 inverse temperature ``beta`` and the *cached* potential energy ``e`` (the
 functional analogue of ``Particle.e``, ``particle_1d.jl:9-16``), so the

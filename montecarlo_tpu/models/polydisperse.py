@@ -14,7 +14,7 @@ displacement dynamics alone.  This module ships that model family:
   all zero at the cut — coefficients solved exactly at import);
 - power-law diameter distribution ``P(d) ~ d^-3`` on [0.73, 1.62] (the
   established continuous-polydispersity protocol), sampled by inverse CDF;
-- :func:`displacement_move` (O(N) incremental dE, same TPU pattern as
+- :func:`displacement_move` (O(N) incremental dE, same vectorised pattern as
   ``lennard_jones``) and :func:`swap_move` — exchange the diameters of a
   uniformly-chosen particle pair (self-inverse, logq cancels).
 
@@ -35,6 +35,9 @@ import numpy as np
 
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+
+#: event-chain projections run in full float32, never TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "PolyState",
@@ -436,7 +439,7 @@ def ecmc_model(chain_length: float, params: PolyParams = PolyParams(),
             d_a = jnp.sum(jnp.where(mask_a, state.diam, 0.0))
             rel = pos - p
             rel = rel - box * jnp.round(rel / box)
-            along = rel @ shift_v
+            along = jnp.dot(rel, shift_v, precision=_HIGHEST)  # no TF32
             r0sq = jnp.sum(rel * rel, axis=-1)
             w2 = jnp.maximum(r0sq - along * along, 0.0)
 

@@ -22,7 +22,7 @@ expectations up to O((beta/M)^2) Trotter error:
 
 The sampler here is the whole-lattice checkerboard driver (the (i+m)-parity
 2-colouring of the space-time torus), one fused (chains, N, M) vector op per
-half-sweep — the same TPU pattern as ``ising2d.CheckerboardMetropolis``.
+half-sweep — the same pattern as ``ising2d.CheckerboardMetropolis``.
 Exact-diagonalization ground truth for small N ships in
 :func:`ed_observables`.
 """

@@ -1,9 +1,9 @@
 """Checkerboard cell-list Monte Carlo for large-N particle systems (2-D/3-D).
 
-The O(N)-per-move row kernels (``lj_sweep.py``) cap particle MC at N ~ 10^3:
+The O(N)-per-move generic row path caps particle MC at N ~ 10^3:
 every attempt touches all N rows and attempts are sequential.  This module
 implements the massively-parallel alternative (the cell decomposition of
-Anderson, Lechner & Glotzer's checkerboard GPU MC, re-derived TPU-first):
+Anderson, Lechner & Glotzer's checkerboard GPU MC, re-derived in plain XLA):
 
 - The box is divided into an ``nc^dim`` grid of cells (``nc`` even, >= 4) of
   real-space width ``w = box / nc >= rcut + 2 * d_cap``.
@@ -118,8 +118,8 @@ def plan_grid(n_particles: int, box: float, rcut: float,
     ``cap`` (slots per cell) is the larger of ``mean occupancy x
     cap_slack`` and ``max_occupancy + 2`` (the observed initial per-cell
     maximum, when the caller measured one — binding latches an invalid
-    flag if ever exceeded), rounded up to a multiple of 8 (the VPU lane
-    quantum).  Raises if the box only fits a grid smaller than 4^dim
+    flag if ever exceeded), rounded up to a multiple of 8 (whole
+    vector widths for the gathers).  Raises if the box only fits a grid smaller than 4^dim
     (cell MC needs >= 4 cells per axis so the 3^dim torus rolls are
     distinct cells).
     """

@@ -3,8 +3,8 @@
 The reference engine offers only single-proposal Metropolis–Hastings
 (``src/metropolis.jl:176-190``); cluster algorithms (Swendsen–Wang, Wolff) are
 the standard next capability on lattice systems and the textbook formulations
-are sequential flood fills — useless on a TPU.  This module provides the
-TPU-native primitive both need: given per-bond activation masks on a periodic
+are sequential flood fills — useless on an accelerator.  This module
+provides the vectorised primitive both need: given per-bond activation masks on a periodic
 2-D lattice, label every activated-bond connected component, as a fixpoint of
 fused (L, L) vector ops.
 

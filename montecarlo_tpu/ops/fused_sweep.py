@@ -1,17 +1,19 @@
-"""Pallas fused Metropolis sweep for 1-D scalar systems.
+"""Pallas (Triton) fused Metropolis sweep for 1-D scalar systems.
 
-Speed-of-light path for the BASELINE.json headline config (particle-1d
-harmonic, 10^4 chains): the entire chain population stays resident in VMEM
-for a whole multi-step segment, with hardware PRNG, Box–Muller Gaussian
-proposals, and log-space acceptance — one kernel launch per recorder segment
-instead of one XLA step per Metropolis sweep.
+The flagship's fast path (particle-1d harmonic, 10^4 chains): one thread
+owns one chain and keeps it in a register for a whole recorder segment,
+drawing its random numbers from a counter-based hash, making Box–Muller
+Gaussian proposals and testing acceptance in log space — one kernel launch
+per recorder segment instead of one XLA step per Metropolis sweep.
 
 Semantically equivalent to the generic `mc_step` path for a single symmetric
 Gaussian displacement move (the logq forward/backward terms of
 ``src/metropolis.jl:183`` cancel exactly for this policy, so the acceptance
-rule reduces to ``log u < Δlogp``); the random stream differs (TPU hardware
-PRNG vs threefry), which changes individual trajectories but not the sampled
-distribution.
+rule reduces to ``log u < Δlogp``); the random stream differs (a hash of
+(seed, step pair, chain index) instead of threefry), which changes
+individual trajectories but not the sampled distribution.  Because the hash
+is keyed by the GLOBAL chain index, results do not depend on the block size,
+the padding or the chain sharding.
 """
 
 from __future__ import annotations
@@ -20,14 +22,25 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-__all__ = ["fused_gaussian_sweep"]
+__all__ = ["fused_gaussian_sweep", "sharded_gaussian_sweep", "grid_for"]
 
-_LANES = 128
-_SUBLANES = 8
-_TILE = _LANES * _SUBLANES
+#: chains per program (one chain per thread) and warps per program, chosen
+#: by a block-size sweep on the H100 (see PERF.md)
+BLOCK = 32
+NUM_WARPS = 1
+
+
+def grid_for(m: int, block: int = BLOCK):
+    """``(padded chain count, number of programs)`` for ``m`` chains in
+    blocks of ``block`` (a power of two)."""
+    if block <= 0 or block & (block - 1):
+        raise ValueError(f"block must be a power of two, got {block}")
+    n_blocks = max(1, -(-m // block))
+    return n_blocks * block, n_blocks
 
 
 def _uniform_from_bits(bits):
@@ -49,64 +62,25 @@ def _hash32(s):
     return s
 
 
-def software_bits(step_seed, draw, shape):
-    """Counter-based uint32 bits in pure jnp — the interpret-mode stand-in
-    for the TPU hardware PRNG (``pltpu.prng_seed`` has no interpret-mode
-    lowering).  Two murmur-finalizer rounds over (seed, draw index, lane
-    index); a different stream than the hardware PRNG, which is fine — the
-    kernel's statistical contract, not its bit stream, is what tests pin."""
-    import numpy as _np
-    cols = shape[-1]
-    flat = (jax.lax.broadcasted_iota(jnp.int32, shape, 0) * cols
-            + jax.lax.broadcasted_iota(jnp.int32, shape, len(shape) - 1))
-    h = flat * jnp.int32(-1640531527) + step_seed        # 0x9E3779B9
+def hash_bits(step_seed, draw: int, idx):
+    """Counter-based uint32 bits for chain indices ``idx`` (int32 array):
+    two murmur-finalizer rounds over (seed, draw index, chain index)."""
+    h = idx * jnp.int32(-1640531527) + step_seed          # 0x9E3779B9
     # wrap the static draw tag through uint32 (draw >= 3 would overflow a
     # direct jnp.int32(...) construction)
-    tag = int(_np.uint32(draw * 0x3243F6A9).view(_np.int32))
+    tag = int(np.uint32(draw * 0x3243F6A9).view(np.int32))
     h = _hash32(h ^ jnp.int32(tag))
     h = _hash32(h + jnp.int32(draw))
     return jax.lax.bitcast_convert_type(h, jnp.uint32)
 
 
-def make_draw(hw_prng: bool, step_seed, shape):
-    """Per-step random-bit source: ``draw(k)`` -> uint32 array of ``shape``.
-
-    Hardware path seeds the TPU PRNG once per step and pulls sequential
-    blocks; software path (interpret mode / CPU CI) hashes (seed, k, lane).
-    The hardware stream is positional (block order), NOT a function of
-    ``k`` — so the closure ENFORCES at trace time (``k`` is always a static
-    python int) that callers request strictly sequential fresh indices
-    ``0, 1, 2, ...``: a reused or reordered index would silently return
-    different bits on CI (interpret/software mode, where ``draw(k)`` IS a
-    pure function of ``k``) than on real TPU.  Trace-time assertion = zero
-    runtime cost in the PRNG-bound kernels (a per-draw re-seed measured a
-    ~6% throughput hit on the headline Gaussian sweep).
-    """
-    if hw_prng:
-        expected = [0]
-
-        def draw(k):
-            if k != expected[0]:
-                raise ValueError(
-                    f"make_draw(hardware): draw index {k} requested but the "
-                    f"sequential stream is at {expected[0]} — hardware "
-                    f"draws are positional; request fresh indices 0, 1, 2, "
-                    f"... per make_draw closure")
-            expected[0] += 1
-            if k == 0:
-                pltpu.prng_seed(step_seed)
-            return pltpu.bitcast(
-                pltpu.prng_random_bits(shape), jnp.uint32)
-        return draw
-    return lambda k: software_bits(step_seed, k, shape)
-
-
-def _sweep_kernel(potential, hw_prng, gridded, seed_ref, t0_ref, nsteps_ref,
-                  x_ref, beta_ref, sigma_ref, x_out, e_out, acc_out):
+def _sweep_kernel(potential, block, seed_ref, t0_ref, nsteps_ref, off_ref,
+                  sigma_ref, x_ref, beta_ref, x_out, e_out, acc_out):
     sigma = sigma_ref[0]
-    beta = beta_ref[:]
-    shape = x_ref.shape
-    pid = pl.program_id(0) if gridded else jnp.int32(0)
+    seed = seed_ref[0]
+    beta = beta_ref[...]
+    idx = (off_ref[0] + pl.program_id(0) * block
+           + jax.lax.broadcasted_iota(jnp.int32, (block,), 0))
     n_steps = nsteps_ref[0]
     t0 = t0_ref[0]
     t_end = t0 + n_steps
@@ -119,21 +93,14 @@ def _sweep_kernel(potential, hw_prng, gridded, seed_ref, t0_ref, nsteps_ref,
     def body(j, carry):
         """TWO MH steps per iteration: Box–Muller yields a PAIR of exact
         independent standard normals (the cos and sin halves of the same
-        draws), so a double-step costs 4 PRNG blocks instead of 6 — the
-        kernel is PRNG-bound, making this a ~1.3x throughput lever."""
+        draws), so a double-step costs 4 hashed draws instead of 6."""
         x, acc = carry
         p = p0 + j
-        # Re-seed per absolute pair index (counter-based, like the generic
-        # path's fold_in(t)); the chain-block index is folded in (pid = 0
-        # when the population fits one block).
-        draw = make_draw(
-            hw_prng,
-            _hash32(seed_ref[0] + p) + pid * jnp.int32(1000003),
-            shape)
-        u1 = _uniform_from_bits(draw(0))
-        u2 = _uniform_from_bits(draw(1))
-        u3 = _uniform_from_bits(draw(2))
-        u4 = _uniform_from_bits(draw(3))
+        # re-seed per absolute pair index (counter-based, like the generic
+        # path's fold_in(t))
+        step_seed = _hash32(seed + p)
+        u1, u2, u3, u4 = (_uniform_from_bits(hash_bits(step_seed, k, idx))
+                          for k in range(4))
         r = jnp.sqrt(-2.0 * jnp.log(u1))
         theta = (2.0 * jnp.pi) * u2
         z1 = r * jnp.cos(theta)
@@ -155,33 +122,32 @@ def _sweep_kernel(potential, hw_prng, gridded, seed_ref, t0_ref, nsteps_ref,
         return x, acc
 
     x, acc = jax.lax.fori_loop(
-        0, n_pairs, body, (x_ref[:], jnp.zeros(shape, jnp.int32)))
-    x_out[:] = x
-    e_out[:] = potential(x)
-    acc_out[:] = acc
+        0, n_pairs, body, (x_ref[...], jnp.zeros((block,), jnp.int32)))
+    x_out[...] = x
+    e_out[...] = potential(x)
+    acc_out[...] = acc
 
 
 @functools.partial(jax.jit, static_argnames=("potential", "interpret",
-                                             "block_rows"))
-def fused_gaussian_sweep(x, beta, sigma, seed, t0, n_steps, *, potential,
-                         interpret=False, block_rows=2048):
+                                             "block", "num_warps"))
+def fused_gaussian_sweep(x, beta, sigma, seed, t0, n_steps, offset=0, *,
+                         potential, interpret=False, block=BLOCK,
+                         num_warps=NUM_WARPS):
     """Run ``n_steps`` Metropolis sweeps of a Gaussian displacement move over
-    all chains inside one Pallas kernel.
+    all chains inside one Pallas kernel (Triton route).
 
-    Populations larger than one VMEM-resident block are tiled over a chain-
-    block grid (``block_rows`` sublane rows = ``block_rows * 128`` chains per
-    block, ~few MB of VMEM per array), with the block index folded into the
-    per-step seed; a single-block population (pid 0) keeps the exact stream
-    of the ungridded kernel.
+    The chain axis is padded to a multiple of ``block`` and split over a
+    1-D grid of ``ceil(M / block)`` programs, one chain per thread.
 
     Args:
       x: (M,) float32 positions.
       beta: (M,) float32 inverse temperatures.
       sigma: scalar proposal width (traced).
-      seed: int32 scalar base PRNG seed (traced).
-      t0: int32 scalar absolute step offset — step k uses seed
-        ``hash(seed + t0 + k)``, making results segmentation-invariant.
+      seed: int32 scalar base seed (traced).
+      t0: int32 scalar absolute step offset — step pair p uses seed
+        ``hash(seed + p)``, making results segmentation-invariant.
       n_steps: int32 scalar number of MH steps (traced; dynamic trip count).
+      offset: int32 global index of chain 0 (the shard offset under a mesh).
       potential: static elementwise callable U(x).
 
     Returns:
@@ -189,80 +155,46 @@ def fused_gaussian_sweep(x, beta, sigma, seed, t0, n_steps, *, potential,
       segment.
     """
     m = x.shape[0]
-    m_pad = -(-m // _TILE) * _TILE
-    rows = m_pad // _LANES
-    br = min(block_rows, rows)
-    rows_pad = -(-rows // br) * br
-    grid = rows_pad // br
-    m_pad = rows_pad * _LANES
-    xp = jnp.zeros((m_pad,), x.dtype).at[:m].set(x).reshape(rows_pad, _LANES)
-    bp = jnp.zeros((m_pad,), beta.dtype).at[:m].set(beta).reshape(
-        rows_pad, _LANES)
-
-    kernel = functools.partial(_sweep_kernel, potential, not interpret,
-                               grid > 1)
-    if grid == 1:
-        # single-block fast path: whole-array VMEM residency, no grid
-        # machinery — the exact original kernel (pid = 0)
-        blk = lambda: pl.BlockSpec(memory_space=pltpu.VMEM)
-        grid_kw = {}
-    else:
-        blk = lambda: pl.BlockSpec((br, _LANES), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM)
-        grid_kw = {"grid": (grid,)}
+    m_pad, n_blocks = grid_for(m, block)
+    pad = lambda a: jnp.pad(a.astype(jnp.float32), (0, m_pad - m))
+    scalar = lambda v, dt: jnp.asarray(v, dt).reshape(1)
+    one = pl.BlockSpec((1,), lambda i: (0,))
+    blk = pl.BlockSpec((block,), lambda i: (i,))
     x_out, e_out, acc = pl.pallas_call(
-        kernel,
-        **grid_kw,
+        functools.partial(_sweep_kernel, potential, block),
+        grid=(n_blocks,),
         out_shape=(
-            jax.ShapeDtypeStruct((rows_pad, _LANES), jnp.float32),
-            jax.ShapeDtypeStruct((rows_pad, _LANES), jnp.float32),
-            jax.ShapeDtypeStruct((rows_pad, _LANES), jnp.int32),
+            jax.ShapeDtypeStruct((m_pad,), jnp.float32),
+            jax.ShapeDtypeStruct((m_pad,), jnp.float32),
+            jax.ShapeDtypeStruct((m_pad,), jnp.int32),
         ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # seed
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # t0
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # n_steps
-            blk(),                                   # x
-            blk(),                                   # beta
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # sigma
-        ],
-        out_specs=(blk(), blk(), blk()),
+        in_specs=[one, one, one, one, one, blk, blk],
+        out_specs=(blk, blk, blk),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=1),
         interpret=interpret,
+        name="gaussian_sweep",
     )(
-        jnp.asarray(seed, jnp.int32).reshape(1),
-        jnp.asarray(t0, jnp.int32).reshape(1),
-        jnp.asarray(n_steps, jnp.int32).reshape(1),
-        xp, bp,
-        jnp.asarray(sigma, jnp.float32).reshape(1),
+        scalar(seed, jnp.int32), scalar(t0, jnp.int32),
+        scalar(n_steps, jnp.int32), scalar(offset, jnp.int32),
+        scalar(sigma, jnp.float32), pad(x), pad(beta),
     )
-    flat = lambda a: a.reshape(-1)[:m]
-    return flat(x_out), flat(e_out), flat(acc)
-
-
-def _shard_seed(axis, seed):
-    """Fold the shard index into the PRNG seed (one stream per shard) —
-    shared by every sharded fused kernel (gaussian/LJ/poly)."""
-    sidx = jax.lax.axis_index(axis)
-    return seed + (sidx.astype(jnp.int32) + 1) * jnp.int32(-1640531527)
+    return x_out[:m], e_out[:m], acc[:m]
 
 
 def sharded_gaussian_sweep(mesh, axis, x, beta, sigma, seed, t0, n_steps, *,
                            potential, interpret=False):
-    """Multi-device fused sweep: each shard runs the VMEM-resident kernel on
-    its local chains under ``shard_map``, with the shard index folded into
-    the PRNG seed so shards draw independent streams.
-
-    Reproducible for a fixed mesh layout; unlike the generic per-chain
-    fold_in path, the hardware-PRNG stream is block-indexed, so results
-    depend on the shard count (documented trade-off of the fast path).
-    """
+    """Multi-device fused sweep: each shard runs the kernel on its local
+    chains under ``shard_map``, with the shard's global chain offset as the
+    hash counter, so the result is bitwise that of one device."""
     from jax.sharding import PartitionSpec as P
     from jax import shard_map
 
     def local(x_l, beta_l, sigma_l, seed_l, t0_l, n_l):
-        return fused_gaussian_sweep(x_l, beta_l, sigma_l,
-                                    _shard_seed(axis, seed_l), t0_l,
-                                    n_l, potential=potential,
+        off = jax.lax.axis_index(axis).astype(jnp.int32) * x_l.shape[0]
+        return fused_gaussian_sweep(x_l, beta_l, sigma_l, seed_l, t0_l, n_l,
+                                    off, potential=potential,
                                     interpret=interpret)
 
     fn = shard_map(local, mesh=mesh,

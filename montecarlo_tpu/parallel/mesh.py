@@ -2,8 +2,8 @@
 
 The reference's only parallelism is chains-over-OS-threads via Transducers
 (``src/metropolis.jl:265``, SURVEY §2 "Parallelism strategies").  The
-TPU-native equivalent: a 1-D ``jax.sharding.Mesh`` over all devices (ICI
-within a slice, DCN across hosts, transparently), with every chain-major leaf
+accelerator equivalent: a 1-D ``jax.sharding.Mesh`` over all devices
+(NVLink within a host, the network across hosts, transparently), with every chain-major leaf
 of the device-state pytree sharded ``P('chains')`` and everything else
 (move parameters, step counter, gradient accumulators) replicated.
 

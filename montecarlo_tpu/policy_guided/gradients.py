@@ -1,6 +1,6 @@
 """PGMC gradient estimation kernel.
 
-TPU-native rebuild of ``src/PolicyGuided/gradients.jl``.  The reference
+Rebuild of ``src/PolicyGuided/gradients.jl``.  The reference
 supports three AD backends (ForwardDiff/Enzyme/Zygote) behind
 ``withgrad_log_proposal_density!`` (``gradients.jl:28``, ``ext/*.jl``); here a
 single backend — ``jax.value_and_grad`` through the policy log-density —

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 
 from .gradients import GradientData
@@ -62,8 +63,14 @@ class BLAPG(PolicyGradient):
 
     def update(self, p, gd):
         eta = jnp.sqrt(2.0 * self.delta
-                       / (jnp.dot(gd.grad_j, gd.grad_j) + self.eps_id))
+                       / (_dot(gd.grad_j, gd.grad_j) + self.eps_id))
         return p + eta * (gd.grad_j - gd.j * gd.grad_logq_forward)
+
+
+def _dot(a, b):
+    """Full float32 product: a GPU may otherwise run a float32 ``@`` in TF32
+    (about three decimal digits)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _inv_reg(g, eps_id):
@@ -78,7 +85,7 @@ class NPG(PolicyGradient):
     eps_id: float = 0.0
 
     def update(self, p, gd):
-        return p + self.eta * (_inv_reg(gd.g, self.eps_id) @ gd.grad_j)
+        return p + self.eta * _dot(_inv_reg(gd.g, self.eps_id), gd.grad_j)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,8 +96,8 @@ class ANPG(PolicyGradient):
     def update(self, p, gd):
         f_inv = _inv_reg(gd.g, self.eps_id)
         eta = jnp.sqrt(2.0 * self.delta
-                       / (gd.grad_j @ (f_inv @ gd.grad_j)))
-        return p + eta * (f_inv @ gd.grad_j)
+                       / _dot(gd.grad_j, _dot(f_inv, gd.grad_j)))
+        return p + eta * _dot(f_inv, gd.grad_j)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +108,8 @@ class BLANPG(PolicyGradient):
     def update(self, p, gd):
         f_inv = _inv_reg(gd.g, self.eps_id)
         d = gd.grad_j - gd.j * gd.grad_logq_forward
-        eta = jnp.sqrt(2.0 * self.delta / (d @ (f_inv @ d)))
-        return p + eta * (f_inv @ d)
+        eta = jnp.sqrt(2.0 * self.delta / _dot(d, _dot(f_inv, d)))
+        return p + eta * _dot(f_inv, d)
 
 
 def learning_step(optimiser: PolicyGradient, flat_params, gd: GradientData):

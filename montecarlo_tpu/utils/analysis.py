@@ -10,7 +10,7 @@ blocking errors, and a one-call ``summary`` that turns an ``energy.dat``-style
 series into ``mean ± err (tau_int, n_eff)``.
 
 Host-side numpy on purpose: these run once on small recorder outputs after the
-device loop has finished — no reason to occupy the TPU.
+device loop has finished — no reason to occupy the accelerator.
 """
 
 from __future__ import annotations

@@ -139,7 +139,7 @@ def test_engine_cell_energy_consistent(engine_cell_run):
                                atol=1e-2)
 
 
-def test_cell_vs_generic_same_ensemble_multisegment():
+def test_cell_vs_generic_same_ensemble_multisegment(tmp_path):
     """Equilibrium e/N from the cell path matches the generic row path —
     run as MANY short segments (a fresh random grid origin per bind), the
     regime where a fixed-origin grid would accumulate its halo-coverage
@@ -163,14 +163,17 @@ def test_cell_vs_generic_same_ensemble_multisegment():
     e_cell = np.asarray(jax.lax.map(
         lambda s: lj.total_energy(s, PARAMS), st_c)) / N
 
-    from montecarlo_tpu.ops.lj_sweep import fused_lj_sweep
+    # reference: the generic row path through Simulation.run, the same
+    # number of displacement attempts per chain
     n_moves = att_tot // M
-    pos_r, e_r, _ = fused_lj_sweep(
-        st.pos, st.species, st.beta, st.energy, float(st.box[0]), 0.12,
-        17, 0, n_moves, params=PARAMS, interpret=True)
-    st_r = dataclasses.replace(st, pos=pos_r, energy=e_r)
+    sim = mc.Simulation(
+        lj.make_system(PARAMS), st,
+        [dict(algorithm=mc.Metropolis, fused="off", seed=17,
+              pool=(lj.lj_displacement_move(0.12, params=PARAMS),))],
+        n_moves, path=str(tmp_path))
+    sim.run()
     e_row = np.asarray(jax.lax.map(
-        lambda s: lj.total_energy(s, PARAMS), st_r)) / N
+        lambda s: lj.total_energy(s, PARAMS), sim.device_state["sys"])) / N
 
     se = np.sqrt(e_cell.std() ** 2 / M + e_row.std() ** 2 / M)
     assert abs(e_cell.mean() - e_row.mean()) < 4 * se + 0.015, (

@@ -1,19 +1,15 @@
-"""Interpret-mode regression tests for the fused Pallas sweep kernels.
+"""Interpret-mode tests for the Triton Gaussian sweep kernel, its wrapper and
+the choice of stepper.
 
-The Pallas path produces the headline benchmark number
-(``ops/fused_sweep.py``, ``ops/lj_sweep.py``); these tests run the same
-kernels in interpret mode on CPU with the software counter-based PRNG
-(``software_bits`` — the hardware PRNG has no interpret-mode lowering), so a
-semantic regression in proposal generation, acceptance, counter or
-cached-energy bookkeeping turns CI red.  They automate the three checks of
-``tools/validate_fused_tpu.py`` / ``tools/validate_lj_tpu.py`` (which still
-exercise the hardware PRNG path on a real TPU host).
+The kernel (``ops/fused_sweep.py``) is the flagship's fast path on a GPU;
+these tests run it in Pallas interpret mode on the CPU, so a semantic
+regression in proposal generation, acceptance, counter or cached-energy
+bookkeeping turns CI red.  ``chip_smoke.py`` runs the same kernel compiled
+for the card.
 
 Reference analogue: the file-driven statistical gate of
 ``test/distribution_test.jl:31-37``.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -21,32 +17,32 @@ import numpy as np
 import pytest
 
 import montecarlo_tpu as mc
+from montecarlo_tpu.core.simulation import _select_advance
 from montecarlo_tpu.models import lennard_jones as lj
 from montecarlo_tpu.models import particle1d as p1d
-from montecarlo_tpu.ops.fused_sweep import (fused_gaussian_sweep,
-                                            sharded_gaussian_sweep,
-                                            software_bits)
-from montecarlo_tpu.ops.lj_sweep import (fused_lj_mixed_sweep, fused_lj_sweep,
-                                         sharded_lj_mixed_sweep)
+from montecarlo_tpu.models import polydisperse as poly
+from montecarlo_tpu.ops.fused_sweep import (fused_gaussian_sweep, grid_for,
+                                            hash_bits, sharded_gaussian_sweep)
 
 M = 4096
 BETA = 2.0
 SIGMA = 0.5
 
 
-def _run_gauss(x, n_steps, t0=0, seed=7):
+def _run_gauss(x, n_steps, t0=0, seed=7, **kw):
     b = jnp.full((x.shape[0],), BETA, jnp.float32)
     return fused_gaussian_sweep(x, b, SIGMA, seed, t0, n_steps,
-                                potential=p1d.harmonic, interpret=True)
+                                potential=p1d.harmonic, interpret=True, **kw)
 
 
 def test_software_bits_are_uniformish():
-    bits = software_bits(jnp.int32(1234), 0, (64, 128))
+    idx = jnp.arange(64 * 128, dtype=jnp.int32)
+    bits = hash_bits(jnp.int32(1234), 0, idx)
     u = np.asarray(bits).astype(np.float64) / 2 ** 32
     assert abs(u.mean() - 0.5) < 5e-3
     assert abs(u.var() - 1 / 12) < 2e-3
     # different draw indices give decorrelated planes
-    b2 = np.asarray(software_bits(jnp.int32(1234), 1, (64, 128)))
+    b2 = np.asarray(hash_bits(jnp.int32(1234), 1, idx))
     assert not np.array_equal(np.asarray(bits), b2)
     c = np.corrcoef(np.asarray(bits).ravel().astype(np.float64),
                     b2.ravel().astype(np.float64))[0, 1]
@@ -120,6 +116,8 @@ def test_gaussian_kernel_counter_semantics():
 
 
 def test_sharded_gaussian_sweep_runs_on_mesh():
+    """Each shard hashes its chains' GLOBAL indices, so the sharded sweep
+    is bitwise the single-device sweep."""
     from montecarlo_tpu.parallel import make_mesh
     mesh = make_mesh()
     n_dev = mesh.devices.size
@@ -131,271 +129,98 @@ def test_sharded_gaussian_sweep_runs_on_mesh():
         potential=p1d.harmonic, interpret=True)
     xs = np.asarray(x1)
     assert abs(xs.std() - 0.5) < 0.05
-    # shards draw independent streams: shard blocks must differ
+    # chains draw independent streams: shard blocks must differ
     blocks = xs.reshape(n_dev, -1)
     assert not np.allclose(blocks[0], blocks[1])
+    x_ref, _, acc_ref = _run_gauss(x, 400)
+    np.testing.assert_array_equal(xs, np.asarray(x_ref))
+    np.testing.assert_array_equal(np.asarray(acc), np.asarray(acc_ref))
 
 
 # ---------------------------------------------------------------------------
-# LJ kernel
+# Wrapper: padding to the block and the 1-D grid
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def lj_state():
-    p = lj.LJParams()
-    st = lj.init_chains(8, 32, rho=0.6, beta=1.0, frac_b=0.25, seed=5,
-                        params=p)
-    return p, st
+@pytest.mark.parametrize("block", [32, 256])
+@pytest.mark.parametrize("m", [1, 127, 1000, 4097, 10_000])
+def test_wrapper_padding_and_grid(m, block):
+    """The chain axis is padded to a whole number of blocks, one program per
+    block, and the padding never leaks into the result: outputs have the
+    input's length and equal the default block's (the hash is keyed by the
+    global chain index, not by the block)."""
+    m_pad, n_blocks = grid_for(m, block)
+    assert m_pad == n_blocks * block and m_pad >= m > m_pad - block
+    x0 = jnp.linspace(-1.0, 1.0, m).astype(jnp.float32)
+    x1, e1, acc = _run_gauss(x0, 5, block=block)
+    assert x1.shape == e1.shape == acc.shape == (m,)
+    assert np.all(np.isfinite(np.asarray(x1)))
+    x_def, _, acc_def = _run_gauss(x0, 5)
+    np.testing.assert_array_equal(np.asarray(x1), np.asarray(x_def))
+    np.testing.assert_array_equal(np.asarray(acc), np.asarray(acc_def))
 
 
-def _run_lj(p, st, n_steps, t0=0, pos=None, energy=None):
-    return fused_lj_sweep(
-        st.pos if pos is None else pos, st.species, st.beta,
-        st.energy if energy is None else energy, float(st.box[0]),
-        0.12, 7, t0, n_steps, params=p, interpret=True, block_chains=8)
+def test_grid_rejects_non_power_of_two_block():
+    with pytest.raises(ValueError, match="power of two"):
+        grid_for(100, 48)
 
 
-def test_lj_kernel_cache_consistency(lj_state):
-    """After hundreds of accepted moves the incrementally-updated energies
-    must match a fresh O(N^2) recomputation — the same gate the XLA path
-    passes in tests/test_lennard_jones.py."""
-    p, st = lj_state
-    pos, e, acc = _run_lj(p, st, 300)
-    st2 = dataclasses.replace(st, pos=pos)
-    full = np.asarray(jax.vmap(lambda s: lj.total_energy(s, p))(st2))
-    np.testing.assert_allclose(np.asarray(e), full, rtol=3e-4, atol=5e-2)
-    rate = float(np.asarray(acc).sum()) / (8 * 300)
-    assert 0.05 < rate < 0.98
-    assert not np.allclose(np.asarray(pos), np.asarray(st.pos))
-    # positions stay wrapped in the box
-    assert np.asarray(pos).min() >= 0.0
-    assert np.asarray(pos).max() < float(st.box[0])
+# ---------------------------------------------------------------------------
+# Choice of stepper: backend x fused option x pool
+# ---------------------------------------------------------------------------
 
-
-def test_lj_kernel_segmentation_invariance(lj_state):
-    p, st = lj_state
-    pos_a, e_a, acc_a = _run_lj(p, st, 240)
-    pos_b, e_b = st.pos, st.energy
-    acc_b = jnp.zeros((8,), jnp.int32)
-    for k in range(3):
-        pos_b, e_b, a = _run_lj(p, st, 80, t0=k * 80, pos=pos_b, energy=e_b)
-        acc_b = acc_b + a
-    assert np.array_equal(np.asarray(pos_a), np.asarray(pos_b))
-    np.testing.assert_allclose(np.asarray(e_a), np.asarray(e_b), rtol=1e-6)
-    assert np.array_equal(np.asarray(acc_a), np.asarray(acc_b))
-
-
-def test_lj_kernel_matches_generic_acceptance(lj_state):
-    """Acceptance rate agreement between the fused LJ kernel and the generic
-    engine running the same displacement move at the same sigma."""
-    p, st = lj_state
-    steps = 250
-    _, _, acc = _run_lj(p, st, steps)
-    acc_fused = float(np.asarray(acc).sum()) / (8 * steps)
-
-    system = lj.make_system(p)
-    sim = mc.Simulation(
-        system, st,
+def _p1d_sim(fused):
+    return mc.Simulation(
+        p1d.make_system(), p1d.init_chains(16, beta=2.0, seed=0),
         [dict(algorithm=mc.Metropolis,
-              pool=(lj.lj_displacement_move(0.12, params=p),), seed=3)],
-        steps, path="/tmp/mctpu_test_fused_lj")
-    from montecarlo_tpu.core.simulation import _make_advance
-    ds = sim.init_device_state()
-    adv = jax.jit(_make_advance(sim.device_algos))
-    out = adv(ds, (jnp.ones(steps + 1, bool),), steps)
-    cnt = np.asarray(out["metropolis"]["counters"])
-    acc_generic = cnt[..., 0].sum() / cnt[..., 1].sum()
-    # 8 chains x 250 attempts per path: se ~ 1%; generous but regression-
-    # catching bound (a sign error in dE moves acceptance by ~50%)
-    assert abs(acc_fused - acc_generic) < 0.08
+              pool=(p1d.displacement_move(sigma=0.5),), seed=1,
+              fused=fused)], 4, path="/tmp/mctpu_choice_p1d")
 
 
-# ---------------------------------------------------------------------------
-# Mixed displacement + swap kernel (BASELINE config 5)
-# ---------------------------------------------------------------------------
-
-def _run_mixed(p, st, n_steps, w_disp=0.7, t0=0, pos=None, spc=None,
-               energy=None):
-    return fused_lj_mixed_sweep(
-        st.pos if pos is None else pos,
-        st.species if spc is None else spc, st.beta,
-        st.energy if energy is None else energy, float(st.box[0]),
-        0.12, w_disp, 7, t0, n_steps, params=p, interpret=True,
-        block_chains=8)
-
-
-def test_lj_mixed_kernel_cache_and_composition(lj_state):
-    """Incremental energies stay consistent through interleaved
-    displacement/swap moves, and swaps conserve the species composition."""
-    p, st = lj_state
-    pos, spc, e, acc, tot = _run_mixed(p, st, 300)
-    st2 = dataclasses.replace(st, pos=pos, species=spc)
-    full = np.asarray(jax.vmap(lambda s: lj.total_energy(s, p))(st2))
-    np.testing.assert_allclose(np.asarray(e), full, rtol=3e-4, atol=5e-2)
-    assert np.array_equal(np.asarray(st.species).sum(1),
-                          np.asarray(spc).sum(1))
-    # species actually moved between slots (swaps were accepted)
-    assert np.asarray(acc)[:, 1].sum() > 0
-    assert not np.array_equal(np.asarray(st.species), np.asarray(spc))
-
-
-def test_lj_mixed_kernel_kind_fractions(lj_state):
-    """Per-move attempt counters follow the pool weights and sum to the
-    total step count per chain."""
-    p, st = lj_state
-    steps = 400
-    _, _, _, acc, tot = _run_mixed(p, st, steps, w_disp=0.8)
-    tot = np.asarray(tot)
-    acc = np.asarray(acc)
-    assert np.all(tot.sum(axis=1) == steps)
-    frac = tot[:, 0].sum() / tot.sum()
-    assert abs(frac - 0.8) < 0.06      # binomial se ~ 0.02 at 400 draws
-    assert np.all(acc <= tot)
-
-
-def test_lj_mixed_kernel_segmentation_invariance(lj_state):
-    p, st = lj_state
-    pos_a, spc_a, e_a, acc_a, tot_a = _run_mixed(p, st, 240)
-    pos_b, spc_b, e_b = st.pos, st.species, st.energy
-    acc_b = jnp.zeros((8, 2), jnp.int32)
-    for k in range(3):
-        pos_b, spc_b, e_b, a, _ = _run_mixed(
-            p, st, 80, t0=k * 80, pos=pos_b, spc=spc_b, energy=e_b)
-        acc_b = acc_b + a
-    assert np.array_equal(np.asarray(pos_a), np.asarray(pos_b))
-    assert np.array_equal(np.asarray(spc_a), np.asarray(spc_b))
-    assert np.array_equal(np.asarray(acc_a), np.asarray(acc_b))
-
-
-def test_lj_mixed_kernel_matches_generic_acceptance(lj_state):
-    """Displacement and swap acceptance rates agree between the fused mixed
-    kernel and the generic engine running the same mixed pool."""
-    p, st = lj_state
-    steps = 400
-    _, _, _, acc, tot = _run_mixed(p, st, steps, w_disp=0.7)
-    acc, tot = np.asarray(acc), np.asarray(tot)
-    rate_fused = acc.sum(axis=0) / np.maximum(tot.sum(axis=0), 1)
-
-    pool = (lj.lj_displacement_move(0.12, weight=0.7, params=p),
-            lj.lj_swap_move(weight=0.3, params=p))
-    sim = mc.Simulation(
-        lj.make_system(p), st,
-        [dict(algorithm=mc.Metropolis, pool=pool, seed=3)],
-        steps, path="/tmp/mctpu_test_fused_lj_mixed")
-    from montecarlo_tpu.core.simulation import _make_advance
-    ds = sim.init_device_state()
-    adv = jax.jit(_make_advance(sim.device_algos))
-    out = adv(ds, (jnp.ones(steps + 1, bool),), steps)
-    cnt = np.asarray(out["metropolis"]["counters"])
-    rate_generic = cnt[..., 0].sum(axis=0) / cnt[..., 1].sum(axis=0)
-    assert abs(rate_fused[0] - rate_generic[0]) < 0.08
-    assert abs(rate_fused[1] - rate_generic[1]) < 0.10
-
-
-def test_lj_mixed_kernel_mono_species_is_safe():
-    """A chain with zero B particles must treat every swap attempt as a
-    rejection (no phantom-particle dE, no species corruption) — round-3
-    review regression."""
+def _lj_sim(fused, mixed):
     p = lj.LJParams()
-    st = lj.init_chains(4, 24, rho=0.5, beta=1.0, frac_b=0.0, seed=2,
+    st = lj.init_chains(2, 32, rho=0.6, beta=1.0, frac_b=0.25, seed=5,
                         params=p)
-    pos, spc, e, acc, tot = fused_lj_mixed_sweep(
-        st.pos, st.species, st.beta, st.energy, float(st.box[0]),
-        0.1, 0.5, 7, 0, 200, params=p, interpret=True, block_chains=4)
-    assert np.asarray(spc).sum() == 0                 # still all-A
-    assert np.asarray(acc)[:, 1].sum() == 0           # all swaps rejected
-    assert np.asarray(tot)[:, 1].sum() > 0            # but attempted
-    st2 = dataclasses.replace(st, pos=pos)
-    full = np.asarray(jax.vmap(lambda s: lj.total_energy(s, p))(st2))
-    np.testing.assert_allclose(np.asarray(e), full, rtol=3e-4, atol=5e-2)
+    pool = (lj.lj_displacement_move(0.1, weight=0.8, params=p),)
+    if mixed:
+        pool += (lj.lj_swap_move(weight=0.2, params=p),)
+    return mc.Simulation(
+        lj.make_system(p), st,
+        [dict(algorithm=mc.Metropolis, pool=pool, seed=1, fused=fused)],
+        4, path="/tmp/mctpu_choice_lj")
 
 
-def _poly_state():
-    from montecarlo_tpu.models import polydisperse as poly
+def _poly_sim(fused):
     p = poly.PolyParams()
-    st = poly.init_chains(8, 32, rho=0.9, beta=1.0, seed=5, params=p)
-    return poly, p, st
-
-
-def test_poly_mixed_kernel_cache_and_composition():
-    """Fused polydisperse swap kernel: incremental energies consistent with
-    an O(N^2) recompute, diameter multiset conserved, swaps accepted."""
-    from montecarlo_tpu.ops.poly_sweep import fused_poly_mixed_sweep
-    poly, p, st = _poly_state()
-    pos, dia, e, acc, tot = fused_poly_mixed_sweep(
-        st.pos, st.diam, st.beta, st.energy, float(st.box[0]),
-        0.1, 0.7, 7, 0, 300, params=p, interpret=True, block_chains=8)
-    st2 = dataclasses.replace(st, pos=pos, diam=dia)
-    full = np.asarray(jax.vmap(lambda s: poly.total_energy(s, p))(st2))
-    np.testing.assert_allclose(np.asarray(e), full, rtol=3e-3, atol=8e-2)
-    np.testing.assert_allclose(
-        np.sort(np.asarray(dia), axis=1),
-        np.sort(np.asarray(st.diam), axis=1), rtol=1e-6)
-    acc, tot = np.asarray(acc), np.asarray(tot)
-    assert np.all(tot.sum(axis=1) == 300)
-    assert acc[:, 1].sum() > 0
-    assert not np.array_equal(np.asarray(dia), np.asarray(st.diam))
-
-
-def test_poly_mixed_kernel_matches_generic_acceptance():
-    """Displacement and swap acceptance rates agree between the fused poly
-    kernel and the generic engine on the same mixed pool."""
-    from montecarlo_tpu.ops.poly_sweep import fused_poly_mixed_sweep
-    poly, p, st = _poly_state()
-    steps = 400
-    _, _, _, acc, tot = fused_poly_mixed_sweep(
-        st.pos, st.diam, st.beta, st.energy, float(st.box[0]),
-        0.1, 0.7, 7, 0, steps, params=p, interpret=True, block_chains=8)
-    acc, tot = np.asarray(acc), np.asarray(tot)
-    rate_fused = acc.sum(axis=0) / np.maximum(tot.sum(axis=0), 1)
-
+    st = poly.init_chains(2, 32, rho=0.9, beta=1.0, seed=5, params=p)
     pool = (poly.displacement_move(0.1, weight=0.7, params=p),
             poly.swap_move(weight=0.3, params=p))
-    sim = mc.Simulation(
+    return mc.Simulation(
         poly.make_system(p), st,
-        [dict(algorithm=mc.Metropolis, pool=pool, seed=3)],
-        steps, path="/tmp/mctpu_test_fused_poly")
-    from montecarlo_tpu.core.simulation import _make_advance
-    ds = sim.init_device_state()
-    adv = jax.jit(_make_advance(sim.device_algos))
-    out = adv(ds, (jnp.ones(steps + 1, bool),), steps)
-    cnt = np.asarray(out["metropolis"]["counters"])
-    rate_generic = cnt[..., 0].sum(axis=0) / cnt[..., 1].sum(axis=0)
-    assert abs(rate_fused[0] - rate_generic[0]) < 0.08
-    assert abs(rate_fused[1] - rate_generic[1]) < 0.10
+        [dict(algorithm=mc.Metropolis, pool=pool, seed=1, fused=fused)],
+        4, path="/tmp/mctpu_choice_poly")
 
 
-def test_poly_mixed_kernel_segmentation_invariance():
-    from montecarlo_tpu.ops.poly_sweep import fused_poly_mixed_sweep
-    poly, p, st = _poly_state()
-
-    def run(pos, dia, e, t0, n):
-        return fused_poly_mixed_sweep(
-            pos, dia, st.beta, e, float(st.box[0]), 0.1, 0.7, 7, t0, n,
-            params=p, interpret=True, block_chains=8)
-
-    pos_a, dia_a, e_a, _, _ = run(st.pos, st.diam, st.energy, 0, 240)
-    pos_b, dia_b, e_b = st.pos, st.diam, st.energy
-    for k in range(3):
-        pos_b, dia_b, e_b, _, _ = run(pos_b, dia_b, e_b, k * 80, 80)
-    assert np.array_equal(np.asarray(pos_a), np.asarray(pos_b))
-    assert np.array_equal(np.asarray(dia_a), np.asarray(dia_b))
-
-
-def test_sharded_lj_mixed_sweep_runs_on_mesh(lj_state):
-    from montecarlo_tpu.parallel import make_mesh
-    p, st = lj_state
-    mesh = make_mesh()
-    n_dev = mesh.devices.size
-    reps = -(-n_dev * 2 // st.pos.shape[0]) * st.pos.shape[0]
-    big = jax.tree_util.tree_map(
-        lambda a: jnp.concatenate([a] * (reps // a.shape[0] or 1))[:n_dev * 2]
-        if a.ndim >= 1 else a, st)
-    pos, spc, e, acc, tot = sharded_lj_mixed_sweep(
-        mesh, "chains", big.pos, big.species, big.beta, big.energy,
-        float(st.box[0]), 0.12, 0.7, 7, 0, 50, params=p, interpret=True,
-        block_chains=8)
-    st2 = dataclasses.replace(big, pos=pos, species=spc)
-    full = np.asarray(jax.vmap(lambda s: lj.total_energy(s, p))(st2))
-    np.testing.assert_allclose(np.asarray(e), full, rtol=3e-4, atol=5e-2)
-    assert np.all(np.asarray(tot).sum(axis=1) == 50)
+@pytest.mark.parametrize("backend,fused,build,kernel", [
+    ("gpu", "auto", lambda f: _p1d_sim(f), True),
+    ("cpu", "auto", lambda f: _p1d_sim(f), False),
+    ("gpu", "off", lambda f: _p1d_sim(f), False),
+    ("cpu", "interpret", lambda f: _p1d_sim(f), True),
+    ("gpu", "auto", lambda f: _lj_sim(f, mixed=True), False),
+    ("gpu", "auto", lambda f: _lj_sim(f, mixed=False), False),
+    ("gpu", "interpret", lambda f: _poly_sim(f), False),
+], ids=["gpu-auto-p1d", "cpu-auto-p1d", "gpu-off-p1d", "cpu-interpret-p1d",
+        "gpu-auto-lj-mixed", "gpu-auto-lj-disp", "gpu-interpret-poly"])
+def test_kernel_choice_by_backend(monkeypatch, backend, fused, build,
+                                  kernel):
+    """A GPU backend gets the Triton kernel for the 1-D Gaussian pool, the
+    CPU the generic path; ``fused='off'`` always opts out and
+    ``'interpret'`` forces the kernel; LJ/poly pools at small N are always
+    generic."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    sim = build(fused)
+    assert sim.device_algos[0].supports_fused is kernel
+    advance = _select_advance(sim)
+    if kernel:
+        assert "_select_advance" in advance.__qualname__
+    else:
+        assert "_make_advance" in advance.__qualname__

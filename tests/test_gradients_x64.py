@@ -1,7 +1,7 @@
 """Float64 gradient cross-validation at reference strength.
 
 The reference asserts three independent AD backends agree to 1e-10
-(``test/ad_backends_test.jl:31-32``).  The TPU build has one AD backend
+(``test/ad_backends_test.jl:31-32``).  This build has one AD backend
 (``jax.grad``); the equivalent strength of evidence is a three-way x64
 cross-check — AD vs the hand-derived analytic gradient vs central finite
 differences — at the same 1e-10 tolerance, for BOTH policies:

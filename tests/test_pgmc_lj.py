@@ -2,10 +2,9 @@
 
 The flagship adaptive workload — Kob-Andersen LJ with a mixed
 displacement + swap pool, PGMC adapting the displacement sigma — running on
-the fused Pallas fast path (interpret mode on the CPU mesh) through the
-hybrid advance: fused segments between estimator/update events, generic
-steps at the events (ref composition: estimator/update as peer algorithms,
-``src/PolicyGuided/update.jl:50``, ``src/simulation.jl:185-191``).
+the generic mask-scheduled stepper over the CPU mesh, with the estimator and
+update as peer algorithms (ref composition: ``src/PolicyGuided/update.jl:50``,
+``src/simulation.jl:185-191``).
 """
 
 import numpy as np
@@ -32,7 +31,7 @@ def lj_pgmc_run(tmp_path_factory):
             lj.lj_swap_move(weight=0.2, params=params))
     mesh = make_mesh(n_devices=8)
     algos = [
-        dict(algorithm=mc.Metropolis, pool=pool, seed=7, fused="interpret"),
+        dict(algorithm=mc.Metropolis, pool=pool, seed=7),
         dict(algorithm=pg.PolicyGradientEstimator,
              dependencies=(mc.Metropolis,),
              optimisers=(pg.VPG(0.02), pg.Static()), q_batch_size=1,
@@ -53,8 +52,9 @@ def lj_pgmc_run(tmp_path_factory):
 
 
 def test_hybrid_advance_selected(lj_pgmc_run):
+    """The LJ mixed pool has no sweep kernel: the generic stepper runs it."""
     _, advance, _, _, _ = lj_pgmc_run
-    assert "hybrid" in advance.__qualname__
+    assert "_make_advance" in advance.__qualname__
 
 
 def test_sigma_adapts_upward(lj_pgmc_run):
@@ -68,7 +68,7 @@ def test_sigma_adapts_upward(lj_pgmc_run):
     assert sigma0 == pytest.approx(0.05)
     # VPG with reward delta^2 grows sigma from a too-small start
     assert sigma_end > sigma0 * 1.02
-    # the updated sigma is what the fused kernel consumed (device params)
+    # the updated sigma is what the sampler consumed (device params)
     sigma_dev = float(jax.tree_util.tree_leaves(
         sim.device_state["params"][0])[0])
     assert sigma_dev == pytest.approx(sigma_end, rel=1e-6)
@@ -103,7 +103,7 @@ def test_rng_impl_fused_warning():
         [dict(algorithm=mc.Metropolis, pool=pool, seed=1,
               rng_impl="rbg", fused="interpret")],
         4, path="/tmp/mctpu_rngwarn")
-    with pytest.warns(UserWarning, match="fused.*hardware PRNG"):
+    with pytest.warns(UserWarning, match="fused.*counter stream"):
         _select_advance(sim)
 
 

@@ -25,18 +25,17 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def engine_rate(sim, n_steps, repeats=3):
     from montecarlo_tpu.core.simulation import _select_advance
-    from montecarlo_tpu.utils.observability import device_sync
 
     ds = sim.init_device_state()
     masks = tuple(jnp.ones(sim.steps + 1, bool) for _ in sim.device_algos)
     adv = jax.jit(_select_advance(sim))
     out = adv(ds, masks, n_steps)
-    device_sync(out)
+    jax.block_until_ready(out)
     best = float("inf")
     for _ in range(repeats):
         t0 = time.perf_counter()
         out = adv(ds, masks, n_steps)
-        device_sync(out)
+        jax.block_until_ready(out)
         best = min(best, time.perf_counter() - t0)
     met = sim.device_algos[0]
     cnt = np.asarray(out[met.state_key]["counters"])

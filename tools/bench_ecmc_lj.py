@@ -34,7 +34,6 @@ def bench_events(m, rho):
     import montecarlo_tpu as mc
     from montecarlo_tpu.core.simulation import _select_advance
     from montecarlo_tpu.models import lennard_jones as lj
-    from montecarlo_tpu.utils.observability import device_sync
 
     chains = lj.init_chains(m, N_PART, rho=rho, beta=1.0, frac_b=0.0,
                             seed=42)
@@ -48,12 +47,12 @@ def bench_events(m, rho):
     masks = tuple(jnp.ones(sim.steps + 1, bool) for _ in sim.device_algos)
     adv = jax.jit(_select_advance(sim))
     out = adv(ds, masks, STEPS)
-    device_sync(out)
+    jax.block_until_ready(out)
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
         out = adv(ds, masks, STEPS)
-        device_sync(out)
+        jax.block_until_ready(out)
         best = min(best, time.perf_counter() - t0)
     stats = out["ecmc"]["stats"]
     ncoll = int(np.asarray(stats["collisions"]).sum())

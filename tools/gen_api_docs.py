@@ -2,7 +2,7 @@
 
 Dependency-free stand-in for a mkdocstrings/Documenter ``@autodocs`` page
 (the reference ships a generated API reference,
-``/root/reference/docs/src/api.md:17-21``): walks the public modules, renders
+the reference's ``docs/src/api.md:17-21``): walks the public modules, renders
 each ``__all__`` symbol's signature and docstring as markdown.  Run manually
 or in the docs CI job before ``mkdocs build``; the output is committed so the
 page also reads fine on the repo itself.
@@ -47,13 +47,13 @@ MODULES = [
     ("montecarlo_tpu.models.xy", "Model: XY"),
     ("montecarlo_tpu.models.heisenberg", "Model: Heisenberg"),
     ("montecarlo_tpu.models.tfim", "Model: transverse-field Ising (PIMC)"),
-    ("montecarlo_tpu.ops.fused_sweep", "Pallas kernel: 1-D Gaussian sweep"),
-    ("montecarlo_tpu.ops.lj_sweep", "Pallas kernel: LJ sweeps"),
-    ("montecarlo_tpu.ops.poly_sweep", "Pallas kernel: polydisperse sweeps"),
+    ("montecarlo_tpu.ops.fused_sweep",
+     "Triton kernel: 1-D Gaussian sweep"),
     ("montecarlo_tpu.ops.cell_mc", "Checkerboard cell-list MC (large N)"),
     ("montecarlo_tpu.ops.cluster", "Cluster-move ops"),
     ("montecarlo_tpu.utils.analysis", "Analysis toolkit"),
     ("montecarlo_tpu.utils.observability", "Observability"),
+    ("montecarlo_tpu.utils.runtime", "Entry-point set-up"),
 ]
 
 

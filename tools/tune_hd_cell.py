@@ -24,7 +24,6 @@ def accepted_rate(m, n, eta, d_cap, sigma, steps=12, sweep=512):
     import montecarlo_tpu as mc
     from montecarlo_tpu.core.simulation import _select_advance
     from montecarlo_tpu.models import hard_disks as hd
-    from montecarlo_tpu.utils.observability import device_sync
 
     chains = hd.init_chains(m, n, eta=eta, seed=42)
     sim = mc.Simulation(
@@ -37,12 +36,12 @@ def accepted_rate(m, n, eta, d_cap, sigma, steps=12, sweep=512):
     masks = tuple(jnp.ones(sim.steps + 1, bool) for _ in sim.device_algos)
     adv = jax.jit(_select_advance(sim))
     out = adv(ds, masks, steps)
-    device_sync(out)
+    jax.block_until_ready(out)
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
         out = adv(ds, masks, steps)
-        device_sync(out)
+        jax.block_until_ready(out)
         best = min(best, time.perf_counter() - t0)
     cnt = np.asarray(out["metropolis"]["counters"])
     acc, att = int(cnt[..., 0].sum()), int(cnt[..., 1].sum())
